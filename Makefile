@@ -1,15 +1,16 @@
 # Harness parity with the reference Makefile (reference Makefile:1-32):
-# build + run + golden-file check, adapted to the TPU framework.
+# build + run + golden-file check.
 
 PYTHON ?= python
 
-# Config selects the input pair and golden files, e.g. `make check SIZE=128x256`.
+# SIZE selects the reference deck, e.g. `make check SIZE=128x256`. The deck's
+# inputs and its gold (tests/golden/) are written to INPUT_DIR.
 SIZE ?= 128x128
-INPUT_DIR ?= /root/reference
+INPUT_DIR ?= inputs
 PARAMS = $(INPUT_DIR)/input_$(SIZE).params
 OBSTACLES = $(INPUT_DIR)/obstacles_$(SIZE).dat
-REF_AV_VELS_FILE ?= $(INPUT_DIR)/check/$(SIZE).av_vels.dat
-REF_FINAL_STATE_FILE ?= $(INPUT_DIR)/check/$(SIZE).final_state.dat
+REF_AV_VELS_FILE ?= $(INPUT_DIR)/$(SIZE).gold_av_vels.dat
+REF_FINAL_STATE_FILE ?= $(INPUT_DIR)/$(SIZE).gold_final_state.dat
 
 all: native
 
@@ -17,20 +18,23 @@ all: native
 native:
 	$(MAKE) -C native
 
-run:
+inputs:
+	$(PYTHON) examples/generate_inputs.py $(INPUT_DIR)
+	$(PYTHON) -c "from lbm_tpu.utils.decks import write_gold_files; \
+		write_gold_files('$(SIZE)', '$(INPUT_DIR)')"
+
+run: inputs
 	$(PYTHON) -m lbm_tpu $(PARAMS) $(OBSTACLES)
 
 # Golden-file acceptance gate (reference Makefile:26-27). The upstream
-# check/check.py is python2-only (check.py:6-10): when a python2 with numpy
-# is available, the UNMODIFIED upstream script is the gate (the literal
-# acceptance contract); otherwise we fall back — loudly — to the in-tree
-# py3 mirror, which is byte-differentially tested against canned upstream
-# transcripts (tests/test_checker_transcript.py). No python2 exists on
-# this mount and zero egress blocks vendoring one, so the fallback is the
-# only executable gate here.
-UPSTREAM_CHECK ?= $(INPUT_DIR)/check/check.py
-check:
-	@if python2 -c 'import numpy' >/dev/null 2>&1; then \
+# check/check.py is python2-only (check.py:6-10): when UPSTREAM_CHECK points
+# at it and a python2 with numpy is available, the UNMODIFIED upstream script
+# is the gate; otherwise the in-tree py3 mirror runs — it is
+# byte-differentially tested against canned upstream transcripts
+# (tests/test_checker_transcript.py).
+UPSTREAM_CHECK ?=
+check: inputs
+	@if [ -n "$(UPSTREAM_CHECK)" ] && python2 -c 'import numpy' >/dev/null 2>&1; then \
 		echo "== golden gate: UPSTREAM check.py (python2) =="; \
 		python2 $(UPSTREAM_CHECK) \
 			--ref-av-vels-file=$(REF_AV_VELS_FILE) \
@@ -38,9 +42,7 @@ check:
 			--av-vels-file=av_vels.dat \
 			--final-state-file=final_state.dat; \
 	else \
-		echo "== golden gate: py3 MIRROR (no python2+numpy found;" \
-		     "upstream check.py is the acceptance contract — the mirror" \
-		     "is transcript-differentially tested against it) =="; \
+		echo "== golden gate: py3 mirror of check/check.py =="; \
 		$(PYTHON) -m lbm_tpu.utils.checker \
 			--ref-av-vels-file=$(REF_AV_VELS_FILE) \
 			--ref-final-state-file=$(REF_FINAL_STATE_FILE) \
@@ -54,11 +56,13 @@ test:
 bench:
 	$(PYTHON) bench.py
 
-# Weak-scaling sweep. On this mount (one chip) it validates the protocol
-# on a virtual 8-device CPU mesh; on a pod run `python bench_scaling.py
-# 1024 --out scaling_pod.json` instead (BENCHMARKS.md runbook).
+smoke:
+	$(PYTHON) chip_smoke.py
+
+# Scaling sweep: on a multi-GPU host `python bench_scaling.py`; here the
+# protocol check on a virtual 8-device CPU mesh.
 scaling:
-	$(PYTHON) bench_scaling.py --cpu-mesh --out scaling_cpu.json
+	$(PYTHON) bench_scaling.py --cpu-mesh
 
 plot:
 	$(PYTHON) -m lbm_tpu.utils.viz final_state.dat final_state.png
@@ -67,4 +71,4 @@ clean:
 	$(MAKE) -C native clean
 	rm -f av_vels.dat final_state.dat final_state.png
 
-.PHONY: all native run check test bench scaling plot clean
+.PHONY: all native inputs run check test bench smoke scaling plot clean

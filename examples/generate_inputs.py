@@ -15,34 +15,13 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from lbm_tpu.utils.geometry import (  # noqa: E402
-    box,
-    box_with_vertical_wall,
-    channel_with_divider,
-    write_obstacle_file,
-    write_params_file,
-)
-
-# (nx, ny, maxIters, reynolds_dim, density, accel, omega), geometry builder
-CONFIGS = {
-    "128x128": ((128, 128, 40000, 10, 0.1, 0.005, 1.85), lambda: box(128, 128)),
-    "128x256": (
-        (128, 256, 40000, 10, 0.1, 0.005, 1.85),
-        lambda: channel_with_divider(128, 256),
-    ),
-    "256x256": ((256, 256, 80000, 10, 0.1, 0.005, 1.85), lambda: box(256, 256)),
-    "1024x1024": (
-        (1024, 1024, 20000, 10, 0.1, 0.01, 1.85),
-        lambda: box_with_vertical_wall(1024, 1024, wall_col=341),
-    ),
-}
+from lbm_tpu.utils.decks import CONFIGS, write_deck  # noqa: E402
 
 
 def main(outdir: str = ".") -> int:
     os.makedirs(outdir, exist_ok=True)
-    for size, (params, geometry) in CONFIGS.items():
-        write_params_file(os.path.join(outdir, f"input_{size}.params"), *params)
-        write_obstacle_file(os.path.join(outdir, f"obstacles_{size}.dat"), geometry())
+    for size in CONFIGS:
+        write_deck(size, outdir)
         print(f"wrote input_{size}.params + obstacles_{size}.dat")
     return 0
 

@@ -1,17 +1,16 @@
-"""lbm_tpu — a TPU-native D2Q9 lattice-Boltzmann framework.
+"""lbm_tpu — a D2Q9 lattice-Boltzmann framework in JAX.
 
 A from-scratch rebuild of the capability surface of the reference
 HPC-Lattice-Boltzmann solver (C + OpenCL, single GPU) as an idiomatic
-JAX / XLA / Pallas framework for TPUs:
+JAX / XLA framework, run on an NVIDIA GPU:
 
 - ``lbm_tpu.models``   — the D2Q9/BGK lattice model (constants, equilibrium,
                          simulation spec).
-- ``lbm_tpu.ops``      — compute ops: a pure-jnp reference step (the
-                         correctness oracle) and a fused Pallas TPU kernel
-                         for the hot collide-and-stream path.
+- ``lbm_tpu.ops``      — compute ops: the jnp step (the main path and the
+                         correctness oracle) and the c16 storage codec.
 - ``lbm_tpu.parallel`` — multi-chip domain decomposition: ``shard_map`` over a
                          device mesh with ``lax.ppermute`` halo exchange and
-                         ``psum`` reductions over ICI.
+                         ``psum`` reductions.
 - ``lbm_tpu.runtime``  — the simulation driver: one jitted ``lax.fori_loop``
                          over all timesteps with the per-step reduction kept
                          on device (no host round-trips), plus checkpointing.

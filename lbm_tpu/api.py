@@ -20,7 +20,7 @@ or fully programmatic::
     params = LBMParams(nx=256, ny=256, max_iters=1000, reynolds_dim=10,
                        density=0.1, accel=0.005, omega=1.85)
     sim = Simulation(params, box(256, 256))
-    result = sim.run(backend="pallas")
+    result = sim.run(dtype="c16")
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import os
 import numpy as np
 
 from lbm_tpu.models.d2q9 import LBMParams
+from lbm_tpu.runtime.compile_cache import enable_compile_cache
 from lbm_tpu.runtime.driver import SimulationResult, run_simulation
 
 
@@ -45,6 +46,7 @@ class Simulation:
             )
         self.params = params
         self.obstacles = obstacles
+        enable_compile_cache()
 
     @classmethod
     def from_files(cls, paramfile, obstaclefile) -> "Simulation":
@@ -72,7 +74,7 @@ class Simulation:
 
             # Checkpoint/resume/chunking kwargs thread through like the 1-D
             # path; anything the 2-D runner doesn't take raises TypeError
-            # loudly rather than being dropped (VERDICT r2 item 4).
+            # loudly rather than being dropped.
             return run_simulation_sharded_2d(
                 self.params, self.obstacles, mesh_shape=mesh, backend=backend,
                 dtype=dtype, **kwargs,

@@ -14,7 +14,7 @@ stdout block (d2q9-bgk.c:283-287):
     Elapsed user CPU time:\t\t%.6f (s)
     Elapsed system CPU time:\t%.6f (s)
 
-Extra (optional, off by default) flags expose the TPU-native surface:
+Extra (optional, off by default) flags expose the rest of the surface:
 ``--backend``, ``--precision``, ``--mesh``, ``--out-dir``, checkpointing, and
 profiling.
 """
@@ -27,44 +27,30 @@ import resource
 import sys
 import time
 
+from lbm_tpu.runtime.driver import BACKENDS
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lbm_tpu",
-        description="TPU-native D2Q9 BGK lattice-Boltzmann solver",
+        description="D2Q9 BGK lattice-Boltzmann solver (JAX)",
     )
     p.add_argument("paramfile", help="7-field params file (nx ny maxIters reynolds_dim density accel omega)")
     p.add_argument("obstaclefile", help="obstacle list file ('x y 1' per line)")
-    # The hierarchical slab kernel is a documented negative result (it loses
-    # to band/band2 everywhere by its own affine model, BENCHMARKS.md): it
-    # is quarantined out of the dispatch surface unless LBM_ENABLE_SLAB=1.
-    backends = ["auto", "pallas", "resident", "aa", "temporal", "deep",
-                "band", "band2", "band3", "reference", "pallas-overlap"]
-    if os.environ.get("LBM_ENABLE_SLAB") == "1":
-        backends.insert(9, "slab")
     p.add_argument(
         "--backend",
-        choices=backends,
+        choices=BACKENDS,
         default="auto",
-        help="step implementation: block-streaming Pallas kernel, VMEM-resident "
-        "multi-step kernel (grids that fit on-chip), in-place AA-resident "
-        "kernel (single-copy VMEM residency up to ~1536^2 f32 / 2048^2 bf16), "
-        "temporally-blocked T-steps-per-pass kernel (HBM-bound grids), deep "
-        "state-view temporal kernel (T>=8, halo strips read from the input "
-        "state), band kernel (fixed-buffer deep blocking, in-kernel T=16-32 "
-        "step loop; with --mesh N, communication-avoiding T-steps-per-"
-        "ppermute sharding), band2 (band schedule + resident ping-pong "
-        "body), band3 (band schedule + in-place AA body on ONE buffer), "
-        "jnp reference, auto, or pallas-overlap (sharded runs only: "
-        "in-kernel RDMA halo exchange)",
+        help="step implementation: auto (the best step for the device and "
+        "grid) or reference (the jnp step, which XLA compiles for the "
+        "device); today both run the jnp step",
     )
     p.add_argument(
         "--precision",
         choices=["f32", "f64", "bf16", "c16"],
         default="f32",
         help="state dtype: f32 (default, passes the 1%% golden gate), "
-        "f64 (CPU exactness studies), c16 (companded 16-bit deviation "
+        "f64 (exactness studies), c16 (companded 16-bit deviation "
         "storage — the supported 16-bit mode: bf16's bandwidth with "
         "golden-gate-passing accuracy; single-device or any mesh), "
         "bf16 (EXPERIMENTAL: raw bfloat16 state CANNOT pass the 1%% "
@@ -120,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["npz", "orbax"],
         default="npz",
         help="checkpoint container: single atomic .npz file (default) or an "
-        "orbax checkpoint directory (the TPU-ecosystem standard)",
+        "orbax checkpoint directory (needs the optional orbax package)",
     )
     p.add_argument(
         "--resume",
@@ -135,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--multihost",
         action="store_true",
-        help="initialize jax.distributed for multi-host pod slices "
+        help="initialize jax.distributed for a multi-process run "
         "(reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)",
     )
     p.add_argument(
@@ -163,7 +149,10 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
 
     from lbm_tpu.io import read_obstacles, read_params, write_av_vels, write_final_state
+    from lbm_tpu.runtime.compile_cache import enable_compile_cache
     from lbm_tpu.runtime.driver import run_simulation
+
+    enable_compile_cache()
 
     if args.multihost:
         from lbm_tpu.parallel.multihost import initialize_multihost
@@ -206,9 +195,9 @@ def main(argv=None) -> int:
         "c16": "c16",  # normalized inside run_simulation (ops/devspace.py)
     }[args.precision]
     if args.precision == "bf16":
-        # Demoted to experimental (VERDICT r3): raw bf16 state drifts far
-        # past the checker's 1% tolerance over the official runs; c16 gives
-        # the same HBM traffic with gate-passing accuracy.
+        # Experimental: raw bf16 state drifts far past the checker's 1%
+        # tolerance over the official runs; c16 gives the same state bytes
+        # with gate-passing accuracy.
         print(
             "lbm_tpu: warning: --precision bf16 is EXPERIMENTAL and cannot "
             "pass the 1% golden gate (av_vels drift ~100% over the official "
@@ -223,6 +212,17 @@ def main(argv=None) -> int:
             f"device={device.device_kind} ({device.platform})",
             file=sys.stderr,
         )
+
+    if args.checkpoint_format == "orbax" and (args.checkpoint_every or args.resume):
+        try:
+            import orbax.checkpoint  # noqa: F401
+        except ImportError:
+            print(
+                "lbm_tpu: error: --checkpoint-format orbax needs the orbax "
+                "package, which is not installed; use --checkpoint-format npz",
+                file=sys.stderr,
+            )
+            return 1
 
     checkpoint_path = args.checkpoint_path
     if checkpoint_path is None and (args.checkpoint_every or args.resume):
@@ -270,7 +270,7 @@ def main(argv=None) -> int:
             return 1
 
     # Unsupported flag combinations fail loudly rather than silently
-    # dropping a resumed state or checkpoint schedule (ADVICE r1).
+    # dropping a resumed state or checkpoint schedule.
     meshed = mesh_2d is not None or mesh_n > 1
     if meshed and args.debug:
         print(

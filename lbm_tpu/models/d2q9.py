@@ -11,7 +11,7 @@ second-order equilibrium expansion reproduce the reference solver exactly
 
 The state tensor convention throughout the framework is a single
 ``(9, ny, nx)`` array ("speed planes" — the reference's structure-of-arrays
-layout, d2q9-bgk.c:549-565 — with nx on the TPU 128-lane minor axis).
+layout, d2q9-bgk.c:549-565 — with nx the contiguous minor axis).
 """
 
 from __future__ import annotations

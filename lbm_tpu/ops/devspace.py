@@ -1,7 +1,7 @@
 """c16: gate-passing companded 16-bit deviation storage.
 
 The reference's 1% golden gate (check/check.py:26-31) fails catastrophically
-under plain bf16 storage (av_vels ~100% diff, BENCHMARKS.md): bf16's 8-bit
+under plain bf16 storage (av_vels drifts ~100%): bf16's 8-bit
 mantissa rounds the full distribution values, whose O(w_k*density) mean
 dwarfs the ~1e-3 hydrodynamic signal. c16 stores what actually carries
 information — the per-plane DEVIATION from the equilibrium-at-rest
@@ -13,17 +13,16 @@ d2q9-bgk.c:572-594) — as a sqrt-companded int16:
 
 The sqrt companding makes the absolute quantization step scale like
 ``2*sqrt(|d|*H)/LIM`` — 4e-9 at |d|=1e-6, 5e-7 at the observed deviation
-maxima — finer than IEEE float16 across the whole occupied range (and
-float16 is not a Mosaic type anyway; int16 is native). Measured on the
-reference configs (round-3 CPU study, BENCHMARKS.md "c16"): av_vels max
-diff ~0.07-0.3% vs the 1% tolerance, indistinguishable from f32, where
-plain-bf16 deviation storage fails at 3.9% and uniform int16 at 1.15%.
+maxima — finer than IEEE float16 across the whole occupied range. Measured
+on the reference configs in a CPU study: av_vels max diff ~0.07-0.3% vs the
+1% tolerance, indistinguishable from f32, where plain-bf16 deviation storage
+fails at 3.9% and uniform int16 at 1.15%.
 
 Everything except the load/store boundary is unchanged: the background is
 uniform, so streaming commutes with it, bounce-back swaps opposite planes
 of EQUAL weight (kernels.cl:100-107 pairs share w_k, so bg_opp == bg_k),
-and the accelerate-flow deltas are additive. Kernels decode to f32 right
-after load and encode right before store; all physics runs at full f32.
+and the accelerate-flow deltas are additive. The step decodes to f32 right
+after load and encodes right before store; all physics runs at full f32.
 
 ``H`` (the largest representable |deviation|) defaults to
 ``64 * density * accel``: the observed per-config maxima are 3.8-17x
@@ -39,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-import numpy as np
 
 from lbm_tpu.models.d2q9 import W0, W1, W2
 
@@ -83,22 +81,8 @@ def decode_value(q, h: float):
     return r * jnp.abs(r) * h
 
 
-def plane_loader(dev):
-    """Per-plane VMEM->f32 loader for the Pallas kernels: identity for
-    raw f32/bf16 storage, companded decode + per-plane background for
-    c16 deviation storage (``dev`` = (*bg, h), the static companding
-    tuple every kernel threads through its lru cache)."""
-    if dev is None:
-        return lambda v, k: v.astype(jnp.float32)
-
-    def load(v, k):
-        return decode_value(v.astype(jnp.float32), dev[9]) + dev[k]
-
-    return load
-
-
 def encode_plane(f, k: int, spec: DevSpec):
-    """Full f32 plane k -> int16 companded deviations (works in-kernel)."""
+    """Full f32 plane k -> int16 companded deviations."""
     return encode_value(f - spec.bg[k], spec.h).astype(jnp.int16)
 
 
@@ -108,7 +92,7 @@ def decode_plane(q, k: int, spec: DevSpec):
 
 
 def encode_state(cells, spec: DevSpec):
-    """(9, ny, nx) f32 state -> int16 companded deviations (jnp, host-side)."""
+    """(9, ny, nx) f32 state -> int16 companded deviations."""
     cells = jnp.asarray(cells, jnp.float32)
     return jnp.stack([encode_plane(cells[k], k, spec) for k in range(9)])
 
@@ -118,20 +102,12 @@ def decode_state(q, spec: DevSpec):
     return jnp.stack([decode_plane(q[k], k, spec) for k in range(9)])
 
 
-def max_abs_deviation(cells, spec: DevSpec) -> float:
-    """Host-side |deviation| max — the driver's saturation check."""
-    cells = np.asarray(cells, np.float32)
-    bg = np.asarray(spec.bg, np.float32).reshape(9, 1, 1)
-    return float(np.max(np.abs(cells - bg)))
-
-
 def lbm_step_reference_c16(state, obstacles, density, accel, omega, dev=None):
     """c16 wrapper around the jnp reference step: decode → step → encode.
 
-    The storage-rounding points match the Pallas kernels' (one encode per
-    step), so this is both the off-TPU fallback for ``--precision c16`` and
-    the oracle the kernel tests compare against. ``dev`` is the static
-    ``(bg0..bg8, h)`` tuple the driver threads through (driver._run_loop).
+    One encode per step: the storage-rounding points any c16 kernel must
+    reproduce. ``dev`` is the static ``(bg0..bg8, h)`` tuple the driver
+    threads through (driver._run_loop).
     """
     from lbm_tpu.ops.reference import lbm_step_reference
 
@@ -139,6 +115,3 @@ def lbm_step_reference_c16(state, obstacles, density, accel, omega, dev=None):
     full = decode_state(state, spec)
     new, tot_u = lbm_step_reference(full, obstacles, density, accel, omega)
     return encode_state(new, spec), tot_u
-
-
-lbm_step_reference_c16.takes_dev = True

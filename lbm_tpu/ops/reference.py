@@ -1,7 +1,7 @@
 """Pure-jnp reference implementation of the D2Q9/BGK timestep.
 
-This is the correctness oracle for the fused Pallas kernel and the portable
-fallback path (CPU / interpret mode). Semantics mirror the reference's two
+This is the step every backend runs today and the correctness oracle for any
+device-specific kernel that joins it. Semantics mirror the reference's two
 OpenCL kernels exactly:
 
 - ``accelerate_flow`` — kernels.cl:7-42: on row ``ny-2``, where the cell is
@@ -98,7 +98,7 @@ def collide(streamed, obstacles, omega):
 
 def lbm_step_reference(cells, obstacles, density, accel, omega):
     """One full timestep (accelerate → stream → bounce/collide → reduce),
-    the jnp oracle for the fused kernel. Returns ``(new_cells, tot_u)``."""
+    the jnp step and oracle. Returns ``(new_cells, tot_u)``."""
     cells = accelerate_flow(cells, obstacles, density, accel)
     streamed = stream(cells)
     return collide(streamed, obstacles, omega)

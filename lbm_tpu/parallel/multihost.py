@@ -1,10 +1,9 @@
-"""Multi-host (pod-slice) initialization.
+"""Multi-process initialization.
 
-The reference is single-node by construction (job_submit_d2q9-bgk:10). For
-TPU pod slices spanning hosts, JAX needs ``jax.distributed.initialize``
-before first device use; the mesh in ``lbm_tpu.parallel.sharded`` then spans
-all global devices and halo ppermutes ride ICI (DCN between hosts is only
-touched by the startup barrier, not the per-step exchange).
+The reference is single-node by construction (job_submit_d2q9-bgk:10). For a
+run spanning several processes (several hosts, or one process per GPU), JAX
+needs ``jax.distributed.initialize`` before first device use; the mesh in
+``lbm_tpu.parallel.sharded`` then spans all global devices.
 
 Configuration comes from the standard JAX env vars (set by most launchers):
 ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID`` —
@@ -21,8 +20,9 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialize the distributed runtime (idempotent no-op on failure to
-    detect any multi-process configuration)."""
+    """Initialize the distributed runtime. With no coordinator and no process
+    count (neither as arguments nor in the environment) this is a no-op: a
+    single-process run needs no distributed setup."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(
@@ -34,13 +34,6 @@ def initialize_multihost(
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
     if coordinator_address is None and num_processes is None:
-        # Single-process TPU VM: jax.distributed.initialize can still be
-        # meaningful (it auto-detects TPU pod topology); try it, but a plain
-        # single-host run must keep working without any distributed setup.
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass
         return
 
     jax.distributed.initialize(
@@ -63,8 +56,7 @@ def run_simulation_multihost(params, obstacles, *, backend="auto", dtype=None):
     ``SimulationResult``. Checkpoint/resume stays single-controller-only.
 
     Validated end-to-end by tests/test_multihost.py's spawned 2-process CPU
-    run (the environment's stand-in for a multi-host pod slice —
-    SURVEY.md §2.4, distributed-communication-backend row).
+    run (SURVEY.md §2.4, distributed-communication-backend row).
     """
     import jax
     import jax.numpy as jnp
@@ -88,10 +80,7 @@ def run_simulation_multihost(params, obstacles, *, backend="auto", dtype=None):
     if params.ny % n != 0:
         raise ValueError(f"ny={params.ny} not divisible by {n} global devices")
 
-    step_fn = S.pick_shard_step(
-        params, n, backend, dtype,
-        on_tpu=mesh.devices.flat[0].platform == "tpu",
-    )
+    step_fn = S.pick_shard_step(backend)
 
     host_cells = np.asarray(D2Q9.initial_state(params, dtype=dtype))
     host_obst = np.asarray(obstacles, dtype=np.int32)
@@ -116,8 +105,7 @@ def run_simulation_multihost(params, obstacles, *, backend="auto", dtype=None):
 
     t0 = time.perf_counter()
     cells, av_vels = compiled(cells, obstacles_dev, inv_tot_cells)
-    # av_vels is fully replicated — fetching it is the synchronization point
-    # (driver.sync can't device_get a non-addressable sharded array).
+    # av_vels is fully replicated — fetching it is the synchronization point.
     av_np = np.asarray(av_vels)
     elapsed = time.perf_counter() - t0
 

@@ -3,7 +3,8 @@
 The reference has no resumable state (its only artifact, final_state.dat,
 stores moments — not the 9 distributions). Here a checkpoint is either a
 single ``.npz`` (default — atomic, dependency-free) or an orbax checkpoint
-directory (``format="orbax"`` — the TPU-ecosystem standard, async-capable),
+directory (``format="orbax"`` — the JAX-ecosystem standard, async-capable;
+an optional dependency, imported only when asked for),
 holding the full ``(9, ny, nx)`` distribution state, the av_vels prefix, the
 completed step count, and the params for validation.
 """

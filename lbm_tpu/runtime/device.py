@@ -2,7 +2,7 @@
 
 The reference enumerates OpenCL devices, prints the list, and honours an
 ``OCL_DEVICE`` index override from the environment (d2q9-bgk.c:950-1007,
-job_submit_d2q9-bgk:16-18). The TPU-native equivalent enumerates
+job_submit_d2q9-bgk:16-18). The JAX equivalent enumerates
 ``jax.devices()`` and honours ``LBM_DEVICE`` (or an explicit ``--device``
 index).
 """
@@ -59,3 +59,21 @@ def select_device(index: int | None = None):
 
 def print_devices(file=sys.stderr) -> None:
     print(format_device_list(), file=file)
+
+
+def gpu_name_and_power_limit() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them
+    (``name, power.limit``), or a note saying why there is none. A card set
+    below its maximum power runs slower under load, so every measured number
+    is reported beside this line."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        )
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable ({type(e).__name__})"
+    return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"

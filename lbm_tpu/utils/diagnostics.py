@@ -3,7 +3,7 @@
 Mirrors the reference's debug facilities: ``total_density`` mass-conservation
 check and the per-step ``==timestep==`` report compiled under ``-DDEBUG``
 (d2q9-bgk.c:229-233, 822-838), plus NaN guarding the reference lacks
-(SURVEY.md §5: jax.debug/checkify-style guards for the TPU build).
+(SURVEY.md §5: jax.debug/checkify-style guards).
 """
 
 from __future__ import annotations

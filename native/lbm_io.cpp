@@ -2,7 +2,7 @@
 //
 // The reference's host program is C (d2q9-bgk.c): file parsing and the
 // final_state/av_vels writers are native code. This library is the
-// TPU-framework equivalent: the exact same byte formats
+// framework's equivalent: the exact same byte formats
 // ("%d %d %.12E %.12E %.12E %.12E %d\n" per cell, d2q9-bgk.c:900;
 // "%d:\t%.12E\n" per step, d2q9-bgk.c:915), exposed over a C ABI consumed
 // from Python via ctypes. At 1024x1024 the final_state writer formats 1M

@@ -20,11 +20,10 @@ def test_simulation_roundtrip(small_params, small_obstacles, tmp_path):
     assert (tmp_path / "av_vels.dat").exists()
 
 
-def test_simulation_from_files():
-    sim = Simulation.from_files(
-        "/root/reference/input_128x128.params",
-        "/root/reference/obstacles_128x128.dat",
-    )
+def test_simulation_from_files(tmp_path):
+    from lbm_tpu.utils.decks import write_deck
+
+    sim = Simulation.from_files(*write_deck("128x128", tmp_path))
     assert sim.params.nx == 128 and sim.obstacles.sum() == 4 * 128 - 4
 
 
@@ -47,8 +46,8 @@ def test_simulation_shape_mismatch(small_params):
 
 
 def test_simulation_2d_mesh_threads_backend(small_params, small_obstacles, monkeypatch):
-    """The 2-D-mesh branch must pass ``backend`` through (VERDICT r2 item 4:
-    it was silently dropped)."""
+    """The 2-D-mesh branch must pass ``backend`` through (it was once
+    silently dropped)."""
     import lbm_tpu.parallel.sharded as sharded_mod
 
     seen = {}

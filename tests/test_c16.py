@@ -1,10 +1,9 @@
-"""c16 companded-16-bit deviation storage (ops/devspace.py, VERDICT r2
-item 2: a <19-f32-plane-traffic storage mode that passes the golden gate).
+"""c16 companded-16-bit deviation storage (ops/devspace.py: half the state
+traffic of f32, and it passes the golden gate).
 
-The full four-config golden drift study ran as the round-3 CPU emulation
-(BENCHMARKS.md "c16"); these tests pin the encode/decode contract, the
-kernel integration (block + temporal, interpret mode), and the driver
-surface (dtype="c16", checkpoint decode, saturation warning).
+These tests pin the encode/decode contract per plane and per deck, the
+driver surface (dtype="c16", checkpoint decode, saturation warning) and the
+sharded c16 steps.
 """
 
 import dataclasses
@@ -84,79 +83,14 @@ def _small(nx=128, ny=32, iters=8):
     return p, obs
 
 
-def test_block_kernel_c16_close_to_f32():
-    """The c16 block kernel (interpret) tracks the f32 run to within the
-    accumulated quantization (orders of magnitude under the 1% gate)."""
-    p, obs = _small()
-    f32 = run_simulation(p, obs, backend="pallas", dtype=jnp.float32)
-    c16 = run_simulation(p, obs, backend="pallas", dtype="c16")
-    assert c16.cells.dtype == np.float32  # decoded for the caller
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_block_kernel_c16_matches_reference_c16():
-    """Kernel c16 vs the jnp reference-c16 wrapper: identical storage
-    rounding points, so they agree to kernel-vs-oracle f32 slack plus at
-    most a quantum of divergence per step."""
-    p, obs = _small(iters=6)
-    ker = run_simulation(p, obs, backend="pallas", dtype="c16")
-    ref = run_simulation(p, obs, backend="reference", dtype="c16")
-    np.testing.assert_allclose(ker.cells, ref.cells, atol=5e-6)
-    np.testing.assert_allclose(ker.av_vels, ref.av_vels, rtol=1e-3, atol=1e-9)
-
-
-def test_temporal_kernel_c16_close_to_f32():
-    p, obs = _small(ny=64, iters=9)  # odd: exercises the remainder step too
-    f32 = run_simulation(p, obs, backend="temporal", dtype=jnp.float32)
-    c16 = run_simulation(p, obs, backend="temporal", dtype="c16")
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_band2_kernel_c16_close_to_f32(monkeypatch):
-    """c16 through the band2 kernel (the backend auto now routes for c16 at
-    2048^2-4096^2): full driver plumbing — encode on upload, the static dev
-    tuple through _run_band2, decode on readback."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    p, obs = _small(ny=64, iters=19)  # two fused passes + block-kernel tail
-    f32 = run_simulation(p, obs, backend="band2", dtype=jnp.float32)
-    c16 = run_simulation(p, obs, backend="band2", dtype="c16")
-    assert c16.cells.dtype == np.float32
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_band2_panel_kernel_c16_close_to_f32(monkeypatch):
-    """c16 through the x-split panel-band2 variant (the large-width
-    schedule): panel pulls ride encoded storage, halo wrap included."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_BAND_PANEL", "128")
-    p, obs = _small(nx=256, ny=64, iters=19)
-    f32 = run_simulation(p, obs, backend="band2", dtype=jnp.float32)
-    c16 = run_simulation(p, obs, backend="band2", dtype="c16")
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
 def test_c16_auto_cpu_runs_reference_wrapper():
-    """auto + c16 off-TPU must run the decode/step/encode wrapper, never the
-    raw reference step on companded ints."""
-    p, obs = _small(nx=20, ny=12, iters=4)  # nx%128 != 0: no pallas fit
+    """auto + c16 must run the decode/step/encode wrapper, never the raw
+    reference step on companded ints."""
+    p, obs = _small(nx=20, ny=12, iters=4)
     res = run_simulation(p, obs, backend="auto", dtype="c16")
     assert np.isfinite(res.av_vels).all()
     f32 = run_simulation(p, obs, backend="reference", dtype=jnp.float32)
     np.testing.assert_allclose(res.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_c16_rejected_backends():
-    # resident (ping-pong) is the one kernel without a c16 storage path;
-    # aa grew one in round 3 (see tests/test_aa.py::test_aa_c16_*).
-    p, obs = _small(iters=2)
-    with pytest.raises(ValueError, match="c16"):
-        run_simulation(p, obs, backend="resident", dtype="c16")
 
 
 def test_c16_checkpoint_stores_decoded_f32(tmp_path):
@@ -164,7 +98,7 @@ def test_c16_checkpoint_stores_decoded_f32(tmp_path):
 
     p, obs = _small(iters=6)
     path = str(tmp_path / "ck.npz")
-    run_simulation(p, obs, backend="pallas", dtype="c16",
+    run_simulation(p, obs, dtype="c16",
                    checkpoint_every=3, checkpoint_path=path)
     cells, av_vels, step = load_checkpoint(path, p)
     assert cells.dtype == np.float32
@@ -172,7 +106,7 @@ def test_c16_checkpoint_stores_decoded_f32(tmp_path):
     # Resume from the decoded checkpoint: re-encode is a clean round-trip.
     p2 = dataclasses.replace(p, max_iters=8)
     res = run_simulation(
-        p2, obs, backend="pallas", dtype="c16", initial_cells=cells,
+        p2, obs, dtype="c16", initial_cells=cells,
         start_step=step, av_vels_prefix=av_vels,
     )
     assert res.av_vels.shape == (8,)
@@ -185,56 +119,34 @@ def test_c16_saturation_warns():
     p, obs = _small(iters=2)
     big = np.full((9, p.ny, p.nx), 0.5, np.float32)  # huge deviations
     with pytest.warns(UserWarning, match="saturated"):
-        run_simulation(p, obs, backend="pallas", dtype="c16",
-                       initial_cells=big)
+        run_simulation(p, obs, dtype="c16", initial_cells=big)
 
 
 def test_c16_saturation_warns_without_fetch():
     """The saturation guard also fires on fetch_final=False timing runs —
     it derives max|deviation| from the on-device int16 codes, never the
-    full state fetch (VERDICT r3 item 9)."""
+    full state fetch."""
     p, obs = _small(iters=2)
     big = np.full((9, p.ny, p.nx), 0.5, np.float32)
     with pytest.warns(UserWarning, match="saturated"):
-        res = run_simulation(p, obs, backend="pallas", dtype="c16",
+        res = run_simulation(p, obs, dtype="c16",
                              initial_cells=big, fetch_final=False)
     assert res.cells is None
-
-
-def test_c16_dispatch_policy(monkeypatch):
-    """On (fake) TPU: c16 follows the 16-bit block/temporal policy — block
-    below 1 GB, temporal at >= 1 GB up to the probed width."""
-    from lbm_tpu.runtime import driver
-
-    class _Dev:
-        platform = "tpu"
-
-    monkeypatch.setattr(driver.jax, "devices", lambda: [_Dev()])
-
-    def p(ny, nx):
-        return LBMParams(nx=nx, ny=ny, max_iters=10, reynolds_dim=10,
-                         density=0.1, accel=0.005, omega=1.85)
-
-    assert driver.select_temporal(p(2048, 2048), "auto", jnp.int16) is None
-    assert driver.select_temporal(p(8192, 8192), "auto", jnp.int16) is False
-    assert driver.select_temporal(p(8192, 16384), "auto", jnp.int16) is None
-    step_fn, name = driver.select_step_fn(p(2048, 2048), "auto", jnp.int16)
-    assert name == "pallas"
 
 
 @pytest.mark.slow
 def test_c16_golden_gate_128x128():
     """The headline claim: c16 storage passes the upstream 1% golden gate at
-    the full official 128x128 config (40k steps), with margin. Runs the
-    production driver path (reference-c16 step on CPU; the TPU kernels share
-    the same storage-rounding points — see the kernel-equivalence tests)."""
-    from lbm_tpu.io import read_obstacles, read_params
+    the full official 128x128 config (40k steps), with margin, against the
+    in-tree f64 gold."""
+    from lbm_tpu.utils.decks import deck_obstacles, deck_params, load_gold
 
-    params = read_params("/root/reference/input_128x128.params")
-    obstacles = read_obstacles("/root/reference/obstacles_128x128.dat", params)
+    params = deck_params("128x128")
+    obstacles = deck_obstacles("128x128")
     res = run_simulation(params, obstacles, backend="reference", dtype="c16")
 
-    ref_av = np.loadtxt("/root/reference/check/128x128.av_vels.dat", usecols=[1])
+    gold = load_gold("128x128")
+    ref_av = gold["av_vels"]
     av_diff = 100.0 * (ref_av - res.av_vels) / res.av_vels
     assert np.max(np.abs(av_diff)) < 0.5, np.max(np.abs(av_diff))
 
@@ -243,7 +155,7 @@ def test_c16_golden_gate_128x128():
     _, _, _, pressure = velocity_field(
         jnp.asarray(res.cells), jnp.asarray(np.asarray(obstacles))
     )
-    ref_p = np.loadtxt("/root/reference/check/128x128.final_state.dat", usecols=[5])
+    ref_p = gold["pressure"].ravel()
     sim_p = np.where(
         np.asarray(obstacles).ravel() == 1,
         params.density / 3.0,
@@ -254,15 +166,13 @@ def test_c16_golden_gate_128x128():
 
 
 def test_c16_sharded_matches_single_device():
-    """c16 over a 1-D mesh (fused kernel per shard, interpret) matches the
-    single-device c16 block kernel: identical storage rounding points, halo
-    rows ride the ppermutes as raw i16."""
+    """c16 over a 1-D mesh (decode/step/encode per shard) matches the
+    single-device c16 run: identical storage rounding points."""
     from lbm_tpu.parallel.sharded import run_simulation_sharded
 
     p, obs = _small(nx=128, ny=64, iters=4)
-    single = run_simulation(p, obs, backend="pallas", dtype="c16")
-    sharded = run_simulation_sharded(p, obs, n_devices=2, backend="pallas",
-                                     dtype="c16")
+    single = run_simulation(p, obs, dtype="c16")
+    sharded = run_simulation_sharded(p, obs, n_devices=2, dtype="c16")
     assert sharded.cells.dtype == np.float32  # decoded
     assert sharded.av_vels.dtype == np.float32
     np.testing.assert_allclose(sharded.cells, single.cells, atol=5e-6)
@@ -271,8 +181,8 @@ def test_c16_sharded_matches_single_device():
 
 
 def test_c16_sharded_jnp_fallback():
-    """auto + c16 on a CPU mesh routes to the decode/step/encode jnp shard
-    step (vma-checked) and stays close to the f32 sharded run."""
+    """auto + c16 on a mesh runs the decode/step/encode jnp shard step
+    (vma-checked) and stays close to the f32 sharded run."""
     from lbm_tpu.parallel.sharded import run_simulation_sharded
 
     p, obs = _small(nx=128, ny=64, iters=4)
@@ -326,10 +236,26 @@ def test_c16_sharded_2d_checkpoint_resume(tmp_path):
     np.testing.assert_array_equal(resumed.cells, full.cells)
 
 
-def test_c16_sharded_2d_pallas_rejected():
-    from lbm_tpu.parallel.sharded import run_simulation_sharded_2d
+@pytest.mark.parametrize("tag", ["128x128", "128x256", "256x256", "1024x1024"])
+@pytest.mark.parametrize("k", range(9))
+def test_codec_plane_roundtrip_per_deck(tag, k):
+    """Per speed slot k and per reference deck's (density, accel): full
+    values around the plane's background survive encode_plane/decode_plane
+    within one companding quantum, and the background itself is exact."""
+    from lbm_tpu.utils.decks import deck_params
 
-    p, obs = _small(nx=24, ny=16, iters=2)
-    with pytest.raises(ValueError, match="f32-only"):
-        run_simulation_sharded_2d(p, obs, mesh_shape=(2, 2), dtype="c16",
-                                  backend="pallas")
+    params = deck_params(tag)
+    spec = devspace.DevSpec.for_params(params.density, params.accel)
+    rng = np.random.RandomState(100 + k)
+    d = (rng.uniform(-1.0, 1.0, (8, 64)) ** 3) * 0.9 * spec.h
+    full = jnp.asarray(spec.bg[k] + d, jnp.float32)
+    q = devspace.encode_plane(full, k, spec)
+    assert q.dtype == jnp.int16
+    back = np.asarray(devspace.decode_plane(q, k, spec), np.float64)
+    dev = np.asarray(full, np.float64) - spec.bg[k]
+    # one quantum of the sqrt companding, plus f32 rounding of the full value
+    bound = (2.0 * np.sqrt(np.abs(dev) * spec.h) / devspace.LIM
+             + spec.h / devspace.LIM**2 + 2 * np.spacing(np.float32(spec.bg[k])))
+    np.testing.assert_array_less(np.abs(back - np.asarray(full, np.float64)), bound)
+    at_bg = devspace.encode_plane(jnp.full((2, 2), spec.bg[k], jnp.float32), k, spec)
+    assert int(np.abs(np.asarray(at_bg)).max()) == 0

@@ -1,57 +1,48 @@
 """Golden-file end-to-end validation (the reference's acceptance gate,
-SURVEY.md §4) — ALL FOUR reference configs on CPU, full iteration counts.
-Marked slow; the default suite covers short prefixes (test_driver) and TPU
-runs cover the official numbers (BENCHMARKS.md).
+SURVEY.md §4) — ALL FOUR reference decks, full iteration counts, on the CPU.
+The full runs are marked slow; the default suite covers the golds themselves
+and short prefixes. ``chip_smoke.py`` runs the full decks on the GPU.
 
-Gold sources: 128x128 and 128x256 have full upstream pairs in
-/root/reference/check; the 256x256 and 1024x1024 final_state golds are
-absent from this mount (.MISSING_LARGE_BLOBS), so those configs check
-av_vels against the upstream gold AND the pressure field against committed
-stand-in golds (tests/golden/*.golden.npz — f64 CPU reruns whose av_vels
-match the upstream golds to ~3e-10%, regenerated by scripts/make_golden.py).
+Gold sources: ``tests/golden/<tag>.golden.npz`` — f64 reruns of each deck
+(``scripts/make_golden.py``) holding the av_vels series, the final pressure
+field and the final Reynolds number. The 256x256 and 1024x1024 golds matched
+the upstream av_vels golds to ~3e-10 % when they were made; the 128x128 and
+128x256 golds reproduce the upstream Reynolds numbers (BASELINE.md:15-16).
 """
 
-import os
+import dataclasses
 
 import numpy as np
 import pytest
 
-from lbm_tpu.io import read_obstacles, read_params, write_av_vels, write_final_state
+from lbm_tpu.io import write_av_vels, write_final_state
 from lbm_tpu.runtime.driver import run_simulation
 from lbm_tpu.utils.checker import check_files
+from lbm_tpu.utils.decks import (
+    CONFIGS,
+    deck_obstacles,
+    deck_params,
+    load_gold,
+    write_gold_files,
+)
 
-REF = "/root/reference"
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+# Upstream Reynolds numbers (BASELINE.md, from the reference README.md:78-98).
+UPSTREAM_REYNOLDS = {
+    "128x128": 9.763598020526,
+    "128x256": 3.718483826704e01,
+    "256x256": 1.007703420252e01,
+}
 
 
 def run_config(tag, tmp_path):
-    params = read_params(f"{REF}/input_{tag}.params")
-    obstacles = read_obstacles(f"{REF}/obstacles_{tag}.dat", params)
+    params = deck_params(tag)
+    obstacles = deck_obstacles(tag)
     result = run_simulation(params, obstacles, backend="reference")
     av = tmp_path / "av_vels.dat"
     fs = tmp_path / "final_state.dat"
     write_av_vels(av, result.av_vels)
     write_final_state(fs, params, result.cells, obstacles)
     return params, obstacles, result, av, fs
-
-
-def write_standin_final_state(tag, tmp_path):
-    """Materialize the committed stand-in gold (pressure npz) in the golden
-    final_state format (u columns zeroed — check.py reads cols 0, 1, 5
-    only, check/check.py:66)."""
-    data = np.load(os.path.join(GOLDEN_DIR, f"{tag}.golden.npz"))
-    pressure = data["pressure"]
-    ny, nx = pressure.shape
-    path = tmp_path / f"{tag}.gold_fs.dat"
-    with open(path, "w") as f:
-        f.write(
-            "".join(
-                "%d %d 0 0 0 %.12E 0\n" % (jj, ii, pressure[ii, jj])
-                for ii in range(ny)
-                for jj in range(nx)
-            )
-        )
-    return path
 
 
 def assert_gate(check, tag):
@@ -63,77 +54,82 @@ def assert_gate(check, tag):
     assert abs(check.av_vels.max_diff_pcnt) < 0.5
 
 
+def gate_full_run(tag, tmp_path):
+    params, obstacles, result, av, fs = run_config(tag, tmp_path)
+    check = check_files(av, fs, *write_gold_files(tag, tmp_path), tolerance=1.0)
+    assert_gate(check, tag)
+    return params, obstacles, result
+
+
 @pytest.mark.slow
 def test_golden_128x128_full_run(tmp_path):
-    params, obstacles, result, av, fs = run_config("128x128", tmp_path)
-    check = check_files(
-        av, fs,
-        f"{REF}/check/128x128.av_vels.dat",
-        f"{REF}/check/128x128.final_state.dat",
-        tolerance=1.0,
-    )
-    assert_gate(check, "128x128")
-    # Reynolds number close to the reference's published value (README.md:78;
-    # theirs reads a one-step-stale state, hence the loose tolerance).
+    params, obstacles, result = gate_full_run("128x128", tmp_path)
+    # Reynolds number close to the reference's published value (README.md:78).
     re = result.reynolds(params, obstacles)
-    assert re == pytest.approx(9.763598020526, rel=2e-3)
+    assert re == pytest.approx(UPSTREAM_REYNOLDS["128x128"], rel=2e-3)
 
 
 @pytest.mark.slow
 def test_golden_128x256_full_run(tmp_path):
-    """The config the reference's own GPU build cannot run (its kernel
-    decomposition is broken for non-square grids, kernels.cl:66-69); full
-    upstream gold pair exists (README.md:84-92)."""
-    params, obstacles, result, av, fs = run_config("128x256", tmp_path)
-    check = check_files(
-        av, fs,
-        f"{REF}/check/128x256.av_vels.dat",
-        f"{REF}/check/128x256.final_state.dat",
-        tolerance=1.0,
-    )
-    assert_gate(check, "128x256")
+    """The deck the reference's own GPU build cannot run (its kernel
+    decomposition is broken for non-square grids, kernels.cl:66-69)."""
+    params, obstacles, result = gate_full_run("128x256", tmp_path)
     re = result.reynolds(params, obstacles)
-    assert re == pytest.approx(3.718483826704e01, rel=2e-3)
+    assert re == pytest.approx(UPSTREAM_REYNOLDS["128x256"], rel=2e-3)
 
 
 @pytest.mark.slow
 def test_golden_256x256_full_run(tmp_path):
-    params, obstacles, result, av, fs = run_config("256x256", tmp_path)
-    gold_fs = write_standin_final_state("256x256", tmp_path)
-    check = check_files(
-        av, fs, f"{REF}/check/256x256.av_vels.dat", gold_fs, tolerance=1.0
-    )
-    assert_gate(check, "256x256")
+    params, obstacles, result = gate_full_run("256x256", tmp_path)
     re = result.reynolds(params, obstacles)
-    assert re == pytest.approx(1.007703420252e01, rel=2e-3)
+    assert re == pytest.approx(UPSTREAM_REYNOLDS["256x256"], rel=2e-3)
 
 
 @pytest.mark.slow
 def test_golden_1024x1024_full_run(tmp_path):
-    """The largest config (20k iters; ~20 min on CPU — the TPU official run
-    is ~1 s, BENCHMARKS.md)."""
-    if not os.path.exists(os.path.join(GOLDEN_DIR, "1024x1024.golden.npz")):
-        pytest.skip("stand-in gold not generated")
-    params, obstacles, result, av, fs = run_config("1024x1024", tmp_path)
-    gold_fs = write_standin_final_state("1024x1024", tmp_path)
-    check = check_files(
-        av, fs, f"{REF}/check/1024x1024.av_vels.dat", gold_fs, tolerance=1.0
-    )
-    assert_gate(check, "1024x1024")
+    """The largest deck (20k iters; ~20 min on CPU)."""
+    gate_full_run("1024x1024", tmp_path)
 
 
 def test_standin_golds_provenance():
-    """The committed stand-in golds must record that their f64 rerun matched
-    the upstream av_vels gold (the provenance that makes the pressure field
-    trustworthy)."""
-    for tag in ("256x256", "1024x1024"):
-        path = os.path.join(GOLDEN_DIR, f"{tag}.golden.npz")
-        if not os.path.exists(path):
-            pytest.skip(f"{tag} stand-in not generated yet")
-        data = np.load(path)
-        assert float(data["max_av_diff_pct_vs_upstream"]) < 1e-6
-        ny, nx = (int(v) for v in tag.split("x")[::-1])
-        assert data["pressure"].shape == (ny, nx)
+    """Each committed gold carries its provenance: the two large decks record
+    that their f64 rerun matched the upstream av_vels gold, the two small
+    ones reproduce the upstream Reynolds number to 1e-9."""
+    for tag in CONFIGS:
+        data = load_gold(tag)
+        params = deck_params(tag)
+        assert data["pressure"].shape == (params.ny, params.nx)
         assert data["pressure"].dtype == np.float64
         # av_vels series kept too (enables drift studies).
-        assert data["av_vels"].ndim == 1
+        assert data["av_vels"].shape == (params.max_iters,)
+        if "max_av_diff_pct_vs_upstream" in data.files:
+            assert float(data["max_av_diff_pct_vs_upstream"]) < 1e-6
+        else:
+            assert float(data["reynolds"]) == pytest.approx(
+                UPSTREAM_REYNOLDS[tag], rel=1e-9
+            )
+
+
+@pytest.mark.parametrize("tag", list(CONFIGS))
+def test_gold_files_materialise_for_checker(tag, tmp_path):
+    """The gold, written in the reference formats, passes the checker
+    against itself and has one line per step and per cell."""
+    av, fs = write_gold_files(tag, tmp_path)
+    params = deck_params(tag)
+    check = check_files(av, fs, av, fs, tolerance=1.0)
+    assert check.passed and check.av_vels.max_diff_pcnt == 0.0
+    with open(av) as f:
+        assert sum(1 for _ in f) == params.max_iters
+    with open(fs) as f:
+        first = f.readline().split()
+    assert first[:2] == ["0", "0"]
+    assert float(first[5]) == pytest.approx(params.density / 3.0, rel=1e-12)
+
+
+@pytest.mark.parametrize("tag", list(CONFIGS))
+def test_gold_prefix_f32(tag):
+    """The first 100 steps of each deck in f32 track its f64 gold."""
+    p = dataclasses.replace(deck_params(tag), max_iters=100)
+    result = run_simulation(p, deck_obstacles(tag))
+    gold = load_gold(tag)["av_vels"][:100]
+    np.testing.assert_allclose(result.av_vels, gold, rtol=1e-3)

@@ -9,11 +9,13 @@ from lbm_tpu.io.files import InputError
 from lbm_tpu.models.d2q9 import LBMParams
 
 
-def test_read_params_reference_files():
-    p = read_params("/root/reference/input_128x128.params")
+def test_read_params_reference_files(tmp_path):
+    from lbm_tpu.utils.decks import write_deck
+
+    p = read_params(write_deck("128x128", tmp_path)[0])
     assert (p.nx, p.ny, p.max_iters, p.reynolds_dim) == (128, 128, 40000, 10)
     assert (p.density, p.accel, p.omega) == (0.1, 0.005, 1.85)
-    p = read_params("/root/reference/input_1024x1024.params")
+    p = read_params(write_deck("1024x1024", tmp_path)[0])
     assert (p.nx, p.ny, p.max_iters) == (1024, 1024, 20000)
     assert p.accel == 0.01
 
@@ -28,9 +30,12 @@ def test_read_params_errors(tmp_path):
         read_params(f)
 
 
-def test_read_obstacles_reference_file():
-    p = read_params("/root/reference/input_128x128.params")
-    mask = read_obstacles("/root/reference/obstacles_128x128.dat", p)
+def test_read_obstacles_reference_file(tmp_path):
+    from lbm_tpu.utils.decks import write_deck
+
+    params_path, obstacles_path = write_deck("128x128", tmp_path)
+    p = read_params(params_path)
+    mask = read_obstacles(obstacles_path, p)
     # The 128x128 geometry is a closed box: full walls on all four edges.
     assert mask.shape == (128, 128)
     assert mask[0, :].all() and mask[-1, :].all()
@@ -83,15 +88,23 @@ def test_final_state_format(tmp_path, small_params, small_obstacles):
 
 def test_final_state_golden_first_lines(tmp_path, params128, obstacles128):
     """The golden 128x128 final_state's obstacle lines are reproduced exactly
-    by the writer given any state (obstacle output depends only on params)."""
+    by the writer given any state (obstacle output depends only on params):
+    the upstream gold's first line, and the in-tree gold's pressure there."""
+    from lbm_tpu.utils.decks import write_gold_files
+
     path = tmp_path / "final_state.dat"
     cells = oracle.initial_state(params128)
     write_final_state(path, params128, cells, obstacles128)
     with open(path) as f:
         ours = f.readline().rstrip("\n")
-    with open("/root/reference/check/128x128.final_state.dat") as f:
-        gold = f.readline().rstrip("\n")
-    assert ours == gold
+    assert ours == (
+        "0 0 0.000000000000E+00 0.000000000000E+00 0.000000000000E+00 "
+        "3.333333333333E-02 1"
+    )
+    _, gold_fs = write_gold_files("128x128", tmp_path)
+    with open(gold_fs) as f:
+        gold = f.readline().split()
+    assert gold[:2] == ours.split()[:2] and gold[5] == ours.split()[5]
 
 
 def test_checker_mirror_pass_and_fail(tmp_path):

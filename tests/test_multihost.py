@@ -1,8 +1,8 @@
 """Unit tests for multi-host initialization (parallel/multihost.py).
 
-A real pod slice isn't available here, so ``jax.distributed.initialize`` is
-mocked; these cover the env-var parsing and the idempotent-fallback branch
-(VERDICT r1 item 7)."""
+A real cluster isn't available here, so ``jax.distributed.initialize`` is
+mocked; these cover the env-var parsing and the no-cluster branch, plus one
+genuine two-process run on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -51,15 +51,15 @@ def test_explicit_args_override_env(recorded, monkeypatch):
 
 
 def test_unconfigured_tries_autodetect(recorded):
-    """No env, no args: auto-detect is attempted with no arguments (TPU pod
-    topology detection) — single call, no kwargs."""
+    """No env, no args: nothing to detect — a single-process run needs no
+    distributed setup, so ``jax.distributed.initialize`` is not called."""
     initialize_multihost()
-    assert recorded == [((), {})]
+    assert recorded == []
 
 
 def test_unconfigured_failure_is_swallowed(monkeypatch):
-    """A plain single-host run must keep working when auto-init raises
-    (multihost.py:36-44)."""
+    """A plain single-process run keeps working even where
+    ``jax.distributed.initialize`` would raise: it is never called."""
 
     def boom(*args, **kwargs):
         raise RuntimeError("no coordinator")
@@ -89,8 +89,7 @@ def test_bad_env_value(monkeypatch, recorded):
 
 
 def test_real_two_process_distributed_run(tmp_path):
-    """GENUINE multi-process validation (VERDICT r2 missing item 1): two
-    spawned CPU processes, localhost coordinator, 4 virtual devices each;
+    """GENUINE multi-process validation: two spawned CPU processes, localhost coordinator, 4 virtual devices each;
     the sharded loop spans all 8 via Gloo cross-process collectives and
     both processes' gathered results must equal the single-process run."""
     import os

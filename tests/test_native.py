@@ -1,7 +1,7 @@
 """Native C++ IO layer (native/lbm_io.cpp) vs the pure-Python fallback.
 
 The two implementations must agree byte-for-byte on output formats and
-accept/reject exactly the same inputs (ADVICE r1: the native parser used to
+accept/reject exactly the same inputs (the native parser used to
 accept trailing junk and silently split >255-char lines). The library is
 built here if missing, so these tests also stand in for the old committed
 .so artifact.

@@ -1,5 +1,5 @@
 """Multi-device sharding tests on the 8-way virtual CPU mesh (SURVEY.md §4:
-sharded vs single-device agreement without TPU pods)."""
+sharded vs single-device agreement without a multi-GPU host)."""
 
 import dataclasses
 
@@ -68,55 +68,6 @@ def test_make_mesh_too_many_devices():
         make_mesh(1000)
 
 
-def test_sharded_pallas_matches_sharded_jnp(small_params, small_obstacles):
-    """The per-shard fused kernel (interpret mode) with ppermute halo-slot
-    exchange agrees with the jnp sharded step."""
-    import dataclasses
-
-    from lbm_tpu.parallel.sharded import make_sharded_pallas_step
-
-    # Pallas needs nx % 128 == 0 and local ny % 8 == 0.
-    p = dataclasses.replace(small_params, nx=128, ny=32, max_iters=4)
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    obs[5, 17] = obs[20, 99] = 1
-    jnp_res = run_simulation_sharded(p, obs, n_devices=2, backend="reference")
-    pal_res = run_simulation_sharded(p, obs, n_devices=2, backend="pallas")
-    np.testing.assert_allclose(pal_res.cells, jnp_res.cells, atol=2e-7)
-    np.testing.assert_allclose(pal_res.av_vels, jnp_res.av_vels, rtol=1e-5, atol=3e-8)
-
-
-def test_sharded_pallas_matches_single_device_pallas(small_params):
-    """Sharded pallas (4 shards) vs single-device pallas, both interpret."""
-    import dataclasses
-
-    from lbm_tpu.runtime.driver import run_simulation
-
-    p = dataclasses.replace(small_params, nx=128, ny=64, max_iters=3)
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    single = run_simulation(p, obs, backend="reference")
-    sharded = run_simulation_sharded(p, obs, n_devices=4, backend="pallas")
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-
-
-def test_sharded_pallas_multiblock_per_shard(small_params, monkeypatch):
-    """Multi-block pallas within each shard (modular halo slots) combined
-    with cross-shard ppermute slot exchange."""
-    import dataclasses
-
-    from lbm_tpu.runtime.driver import run_simulation
-
-    monkeypatch.setenv("LBM_PALLAS_BLOCK", "8")
-    p = dataclasses.replace(small_params, nx=128, ny=64, max_iters=3)
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    obs[9, 100] = 1
-    single = run_simulation(p, obs, backend="reference")
-    sharded = run_simulation_sharded(p, obs, n_devices=2, backend="pallas")
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-
-
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 2), (2, 4), (1, 8)])
 def test_sharded_2d_matches_single_device(mesh_shape, small_params, small_obstacles):
     """2-D (rows x cols) decomposition with two-phase halo exchange agrees
@@ -172,94 +123,9 @@ def test_sharded_checkpoint_resume(tmp_path, small_params, small_obstacles):
     np.testing.assert_allclose(resumed.cells, full.cells, rtol=1e-11)
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4), (4, 2)])
-def test_sharded_2d_pallas_matches_jnp(mesh_shape):
-    """The col_fix fused kernel on a 2-D mesh (x-neighbor column patches +
-    corner splices, interpret mode) agrees with the jnp 2-D step
-    (VERDICT r1 item 3)."""
-    from lbm_tpu.models.d2q9 import LBMParams
-    from lbm_tpu.parallel.sharded import run_simulation_sharded_2d
-
-    py, px = mesh_shape
-    p = LBMParams(
-        nx=128 * px, ny=8 * py, max_iters=4, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    rng = np.random.RandomState(3)
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    obs[rng.randint(1, p.ny - 1, 12), rng.randint(0, p.nx, 12)] = 1
-    # Obstacles pinned at the shard seams exercise the bounce-back across
-    # exchanged columns/corners.
-    obs[p.ny // py - 1, p.nx // px - 1] = 1
-    obs[p.ny // py, p.nx // px] = 1
-    jnp_res = run_simulation_sharded_2d(p, obs, mesh_shape=mesh_shape,
-                                        backend="reference")
-    pal_res = run_simulation_sharded_2d(p, obs, mesh_shape=mesh_shape,
-                                        backend="pallas")
-    np.testing.assert_allclose(pal_res.cells, jnp_res.cells, atol=2e-7)
-    np.testing.assert_allclose(pal_res.av_vels, jnp_res.av_vels, rtol=1e-5, atol=3e-8)
-
-
-def test_sharded_2d_pallas_matches_single_device():
-    """2-D pallas (2x2, interpret) vs the single-device f64 reference."""
-    from lbm_tpu.models.d2q9 import LBMParams
-    from lbm_tpu.parallel.sharded import run_simulation_sharded_2d
-
-    p = LBMParams(
-        nx=256, ny=16, max_iters=5, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    obs[7, 200] = obs[3, 0] = obs[12, 255] = 1
-    single = run_simulation(p, obs, backend="reference", dtype=jnp.float64)
-    pal = run_simulation_sharded_2d(p, obs, mesh_shape=(2, 2), backend="pallas")
-    np.testing.assert_allclose(pal.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(pal.av_vels, single.av_vels, rtol=1e-5, atol=3e-8)
-
-
-def test_sharded_2d_pallas_rejects_bad_local_grid():
-    from lbm_tpu.models.d2q9 import LBMParams
-    from lbm_tpu.parallel.sharded import run_simulation_sharded_2d
-
-    p = LBMParams(
-        nx=256, ny=16, max_iters=1, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    with pytest.raises(ValueError):
-        # local nx = 64 is not lane-aligned
-        run_simulation_sharded_2d(p, obs, mesh_shape=(2, 4), backend="pallas")
-
-
-@pytest.mark.parametrize("n_devices", [2, 4])
-def test_sharded_overlap_rdma_matches_jnp(n_devices):
-    """The in-kernel RDMA halo exchange (pltpu.make_async_remote_copy,
-    simulated by TPU interpret mode on the CPU mesh) agrees with the jnp
-    sharded step (VERDICT r1 item 8 / ROADMAP item 4)."""
-    from lbm_tpu.models.d2q9 import LBMParams
-
-    p = LBMParams(
-        nx=128, ny=16 * n_devices, max_iters=4, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    rng = np.random.RandomState(11)
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    obs[rng.randint(1, p.ny - 1, 8), rng.randint(0, p.nx, 8)] = 1
-    obs[p.ny // n_devices - 1, 5] = obs[p.ny // n_devices, 6] = 1  # seam
-    jnp_res = run_simulation_sharded(p, obs, n_devices=n_devices,
-                                     backend="reference")
-    ovl_res = run_simulation_sharded(p, obs, n_devices=n_devices,
-                                     backend="pallas-overlap")
-    np.testing.assert_allclose(ovl_res.cells, jnp_res.cells, atol=2e-7)
-    np.testing.assert_allclose(ovl_res.av_vels, jnp_res.av_vels, rtol=1e-5, atol=3e-8)
-
-
 def test_sharded_bf16_av_series_is_f32(small_params, small_obstacles):
     """Under bf16 storage the av_vels series accumulates at f32, matching the
-    single-device driver's policy (VERDICT r2 item 5)."""
+    single-device driver's policy."""
     res = run_simulation_sharded(
         small_params, small_obstacles, n_devices=4, backend="reference",
         dtype=jnp.bfloat16,
@@ -268,323 +134,65 @@ def test_sharded_bf16_av_series_is_f32(small_params, small_obstacles):
     assert res.cells.dtype == jnp.bfloat16
 
 
-def test_sharded_pallas_bf16_matches_single_device(small_params):
-    """Sharded bf16 through the fused kernel = single-device bf16 block
-    kernel semantics: bf16 storage rounding each step, f32 arithmetic,
-    f32 av series (VERDICT r2 item 5 — previously a silent f32 upcast)."""
-    import dataclasses
+def _geometry(name, ny, nx):
+    from lbm_tpu.utils.geometry import box
 
-    from lbm_tpu.runtime.driver import run_simulation
+    if name == "box":
+        return box(nx, ny)
+    rng = np.random.RandomState(17)
+    return (rng.rand(ny, nx) < 0.1).astype(np.int32)
 
-    p = dataclasses.replace(small_params, nx=128, ny=64, max_iters=3)
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    obs[9, 100] = 1
-    single = run_simulation(p, obs, backend="pallas", dtype=jnp.bfloat16)
-    sharded = run_simulation_sharded(
-        p, obs, n_devices=2, backend="pallas", dtype=jnp.bfloat16
-    )
-    assert sharded.cells.dtype == jnp.bfloat16
+
+# Tolerances against the single-device run of the same dtype: f32 differs
+# only in the psum's order of summation; c16 may also flip one quantum.
+_TOL = {"f32": dict(cells=1e-7, av=1e-5), "c16": dict(cells=5e-6, av=1e-3)}
+
+
+def _check_against_single(sharded, single, dtype):
+    tol = _TOL[dtype]
+    assert sharded.cells.dtype == np.float32
     assert sharded.av_vels.dtype == np.float32
-    np.testing.assert_allclose(
-        sharded.cells.astype(np.float32), single.cells.astype(np.float32),
-        atol=1e-6,
-    )
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=1e-4)
+    np.testing.assert_allclose(sharded.cells, single.cells, atol=tol["cells"])
+    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=tol["av"],
+                               atol=1e-9)
 
 
-def test_sharded_pallas_f64_rejected(small_params, small_obstacles):
-    """An explicit sharded pallas request at f64 errors instead of silently
-    downgrading to f32 (VERDICT r2 item 5)."""
-    with pytest.raises(ValueError, match="f32/bf16"):
-        run_simulation_sharded(
-            small_params, small_obstacles, n_devices=2, backend="pallas",
-            dtype=jnp.float64,
-        )
+@pytest.mark.parametrize("geometry", ["box", "random10"])
+@pytest.mark.parametrize("dtype", ["f32", "c16"])
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+def test_sharded_1d_matrix(n_devices, dtype, geometry, small_params):
+    """The jnp 1-D sharded step over 2/4/8 devices against one device."""
+    obs = _geometry(geometry, small_params.ny, small_params.nx)
+    dt = jnp.float32 if dtype == "f32" else "c16"
+    single = run_simulation(small_params, obs, dtype=dt)
+    sharded = run_simulation_sharded(small_params, obs, n_devices=n_devices,
+                                     dtype=dt)
+    _check_against_single(sharded, single, dtype)
 
 
-def test_collide_form_threads_into_sharded_steps():
-    """The LBM_COLLIDE form is resolved at factory time, not under the trace
-    (ADVICE r2): both forms produce distinct step factories whose kernels
-    agree physically."""
-    from lbm_tpu.models.d2q9 import LBMParams
-    from lbm_tpu.parallel.sharded import make_sharded_pallas_step
-
-    p = LBMParams(
-        nx=128, ny=32, max_iters=2, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    obs = np.zeros((p.ny, p.nx), dtype=np.int32)
-    obs[0, :] = obs[-1, :] = 1
-    from lbm_tpu.parallel.sharded import build_sharded_loop, make_mesh
-    from lbm_tpu.models.d2q9 import D2Q9
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    mesh = make_mesh(2)
-    results = []
-    for paired in (True, False):
-        step = make_sharded_pallas_step(interpret=True, paired=paired)
-        loop = build_sharded_loop(mesh, p, step_fn=step)
-        cells = jax.device_put(
-            D2Q9.initial_state(p, dtype=jnp.float32),
-            NamedSharding(mesh, P(None, "y", None)),
-        )
-        obs_dev = jax.device_put(
-            jnp.asarray(obs, dtype=jnp.int32), NamedSharding(mesh, P("y", None))
-        )
-        inv = jnp.asarray(1.0 / (obs == 0).sum(), jnp.float32)
-        out_cells, av = loop(cells, obs_dev, inv)
-        results.append(np.asarray(av))
-    # The two forms agree within f32 ulps but are separately compiled.
-    np.testing.assert_allclose(results[0], results[1], rtol=1e-6)
-
-
-@pytest.mark.parametrize("backend", ["aa", "deep"])
-def test_sharded_rejects_single_device_backends(
-    backend, small_params, small_obstacles
-):
-    """Single-device-only kernels fail loudly under a mesh instead of
-    silently running the jnp step (loud-errors invariant)."""
+@pytest.mark.parametrize("geometry", ["box", "random10"])
+@pytest.mark.parametrize("dtype", ["f32", "c16"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4), (4, 2), (1, 8)])
+def test_sharded_2d_matrix(mesh_shape, dtype, geometry, small_params):
+    """The jnp 2-D sharded step over four mesh shapes against one device."""
     from lbm_tpu.parallel.sharded import run_simulation_sharded_2d
 
-    with pytest.raises(ValueError, match="single-device only"):
-        run_simulation_sharded(
-            small_params, small_obstacles, n_devices=2, backend=backend
-        )
-    with pytest.raises(ValueError, match="single-device only"):
-        run_simulation_sharded_2d(
-            small_params, small_obstacles, mesh_shape=(2, 2), backend=backend
-        )
+    obs = _geometry(geometry, small_params.ny, small_params.nx)
+    dt = jnp.float32 if dtype == "f32" else "c16"
+    single = run_simulation(small_params, obs, dtype=dt)
+    sharded = run_simulation_sharded_2d(small_params, obs,
+                                        mesh_shape=mesh_shape, dtype=dt)
+    _check_against_single(sharded, single, dtype)
 
 
-def test_sharded_band_rejected_on_2d_mesh(small_params, small_obstacles):
-    """Band is 1-D-mesh capable but not 2-D; the 2-D path says so."""
+@pytest.mark.parametrize("backend", ["pallas", "band2", "pallas-overlap"])
+def test_sharded_rejects_removed_backends(backend, small_params, small_obstacles):
+    """Backend names of the removed kernels error on both mesh ranks."""
     from lbm_tpu.parallel.sharded import run_simulation_sharded_2d
 
-    with pytest.raises(ValueError, match="1-D-mesh"):
-        run_simulation_sharded_2d(
-            small_params, small_obstacles, mesh_shape=(2, 2), backend="band"
-        )
-
-
-def _band_case(ny, nx, iters):
-    from lbm_tpu.models.d2q9 import LBMParams
-
-    params = LBMParams(
-        nx=nx, ny=ny, max_iters=iters, reynolds_dim=10,
-        density=0.1, accel=0.005, omega=1.85,
-    )
-    rng = np.random.RandomState(7)
-    obstacles = np.zeros((ny, nx), dtype=np.int32)
-    obstacles[0, :] = obstacles[-1, :] = 1
-    obstacles[rng.randint(1, ny - 1, 12), rng.randint(0, nx, 12)] = 1
-    return params, obstacles
-
-
-def test_sharded_band_matches_reference(monkeypatch):
-    """Communication-avoiding sharded band step (T=8 per ppermute pair,
-    2 shards, 2 blocks/shard) + the single-step tail vs the single-device
-    reference backend. iters=19 = two fused passes + a 3-step tail."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    params, obstacles = _band_case(64, 128, 19)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-def test_sharded_band_forcing_row_wrap(monkeypatch):
-    """4 shards: the forced row ny-2 sits in the LAST shard's interior AND
-    in shard 0's wrapped top halo; the modular global-row selector must
-    force both copies consistently (one fused pass, no tail)."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    params, obstacles = _band_case(128, 128, 8)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=4, backend="band"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-def test_sharded_band_c16(monkeypatch):
-    """c16 companded storage through the sharded band step tracks the f32
-    sharded band run at the storage format's resolution."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    params, obstacles = _band_case(64, 128, 16)
-    f32 = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band"
-    )
-    c16 = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band", dtype="c16"
-    )
-    assert c16.cells.dtype == np.float32  # decoded for the caller
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_sharded_band_panel_matches_reference(monkeypatch):
-    """x-split sharded band step (panel variant): 256-wide grid in two
-    128-column panels with 128-column local halos, 2 shards, genuine
-    ppermuted y-halos, incl. the single-step tail and the forced row
-    landing in the last shard."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_BAND_PANEL", "128")
-    params, obstacles = _band_case(64, 256, 19)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-def test_sharded_band_panel_c16(monkeypatch):
-    """c16 companded storage through the sharded panel band step tracks
-    the f32 sharded panel run at the storage format's resolution."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_BAND_PANEL", "128")
-    params, obstacles = _band_case(64, 256, 16)
-    f32 = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band"
-    )
-    c16 = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band", dtype="c16"
-    )
-    assert c16.cells.dtype == np.float32
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_sharded_band2_matches_reference(monkeypatch):
-    """band2's sharded-local variant (ref-resident step body + the per-step
-    forcing field) vs the single-device reference: 2 shards, two fused
-    passes + a 3-step tail, forcing row in the last shard's interior."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    params, obstacles = _band_case(64, 128, 19)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band2"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-def test_sharded_band2_forcing_row_wrap(monkeypatch):
-    """4 shards: the forced row ny-2 sits in the LAST shard's interior AND
-    in shard 0's wrapped top halo; band2's am_all forcing field must force
-    both copies (one fused pass, no tail)."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    params, obstacles = _band_case(128, 128, 8)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=4, backend="band2"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-@pytest.mark.parametrize(
-    "lean,force",
-    [("1", "field"), ("1", "row"), ("0", "field"), ("0", "row")],
-)
-def test_sharded_band2_protocol_combos(monkeypatch, lean, force):
-    """The sharded band2 protocol knobs (LBM_SHARD_LEAN x LBM_SHARD_FORCE,
-    VERDICT r4 item 2's tax levers) all reproduce the single-device
-    reference, pinned here explicitly so coverage never depends on the
-    ambient env: 4 shards so the forcing row wraps into shard 0's top
-    halo (the rowforce form's pos-mod-ny case) and 2 blocks per shard
-    (the lean form's interior-view strips)."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_SHARD_LEAN", lean)
-    monkeypatch.setenv("LBM_SHARD_FORCE", force)
-    params, obstacles = _band_case(128, 128, 8)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=4, backend="band2"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(
-        sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8
-    )
-
-
-def test_sharded_band2_panel_matches_reference(monkeypatch):
-    """band2's x-split panel sharded variant (ref-resident body + dynamic
-    forcing field on (W, P+2H) panel buffers): 256-wide grid in two
-    128-column panels, 2 shards, two fused passes + a 3-step tail,
-    forcing row in the last shard's interior."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_BAND_PANEL", "128")
-    params, obstacles = _band_case(64, 256, 19)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band2"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-def test_sharded_band2_panel_forcing_row_wrap(monkeypatch):
-    """4 shards x panels: the forced row sits in the last shard's interior
-    AND in shard 0's wrapped top halo; the panel variant's am_all field
-    must force both copies including the x-halo columns."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_BAND_PANEL", "128")
-    params, obstacles = _band_case(128, 256, 8)
-    single = run_simulation(params, obstacles, backend="reference")
-    sharded = run_simulation_sharded(
-        params, obstacles, n_devices=4, backend="band2"
-    )
-    np.testing.assert_allclose(sharded.cells, single.cells, atol=3e-7)
-    np.testing.assert_allclose(sharded.av_vels, single.av_vels, rtol=5e-5, atol=3e-8)
-
-
-def test_sharded_band2_fullrow_c16_lean(monkeypatch):
-    """c16 companded storage through the FULL-ROW sharded band2 step
-    under the lean protocol (the round-5 default): the shard halos and
-    the interior BlockSpec-view strips are int16 codes decoded per-plane
-    in-kernel — tracks the f32 run at the storage resolution."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_SHARD_LEAN", "1")
-    params, obstacles = _band_case(128, 128, 16)
-    f32 = run_simulation_sharded(
-        params, obstacles, n_devices=4, backend="band2"
-    )
-    c16 = run_simulation_sharded(
-        params, obstacles, n_devices=4, backend="band2", dtype="c16"
-    )
-    assert c16.cells.dtype == np.float32
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
-
-
-def test_sharded_band2_panel_c16(monkeypatch):
-    """c16 companded storage through the sharded panel band2 step tracks
-    the f32 run at the storage format's resolution."""
-    monkeypatch.setenv("LBM_BAND_BLOCK", "16")
-    monkeypatch.setenv("LBM_BAND_DEPTH", "8")
-    monkeypatch.setenv("LBM_BAND_PANEL", "128")
-    params, obstacles = _band_case(64, 256, 16)
-    f32 = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band2"
-    )
-    c16 = run_simulation_sharded(
-        params, obstacles, n_devices=2, backend="band2", dtype="c16"
-    )
-    assert c16.cells.dtype == np.float32
-    np.testing.assert_allclose(c16.cells, f32.cells, atol=1e-5)
-    np.testing.assert_allclose(c16.av_vels, f32.av_vels, rtol=2e-3, atol=1e-9)
+    with pytest.raises(ValueError, match="unknown backend"):
+        run_simulation_sharded(small_params, small_obstacles, n_devices=2,
+                               backend=backend)
+    with pytest.raises(ValueError, match="unknown backend"):
+        run_simulation_sharded_2d(small_params, small_obstacles,
+                                  mesh_shape=(2, 2), backend=backend)

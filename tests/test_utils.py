@@ -52,28 +52,43 @@ def test_check_finite():
         check_finite(np.array([1.0]), np.array([np.inf]))
 
 
-def test_geometry_box_matches_reference_128():
+def _deck_mask_via_files(tag, tmp_path):
+    """The deck's obstacle mask after a round trip through its files."""
     from lbm_tpu.io import read_obstacles, read_params
+    from lbm_tpu.utils.decks import write_deck
 
-    p = read_params("/root/reference/input_128x128.params")
-    ref = read_obstacles("/root/reference/obstacles_128x128.dat", p)
-    np.testing.assert_array_equal(box(128, 128), ref)
-
-
-def test_geometry_channel_matches_reference_128x256():
-    from lbm_tpu.io import read_obstacles, read_params
-
-    p = read_params("/root/reference/input_128x256.params")
-    ref = read_obstacles("/root/reference/obstacles_128x256.dat", p)
-    np.testing.assert_array_equal(channel_with_divider(128, 256), ref)
+    params_path, obstacles_path = write_deck(tag, tmp_path)
+    return read_obstacles(obstacles_path, read_params(params_path))
 
 
-def test_geometry_wall_matches_reference_1024():
-    from lbm_tpu.io import read_obstacles, read_params
+def _gold_obstacles(tag):
+    """Obstacle cells of the in-tree gold: pressure exactly density/3 there
+    (d2q9-bgk.c:862-866), which no fluid cell of a flowing run holds."""
+    from lbm_tpu.utils.decks import deck_params, load_gold
 
-    p = read_params("/root/reference/input_1024x1024.params")
-    ref = read_obstacles("/root/reference/obstacles_1024x1024.dat", p)
-    np.testing.assert_array_equal(box_with_vertical_wall(1024, 1024, wall_col=341), ref)
+    return load_gold(tag)["pressure"] == deck_params(tag).density / 3.0
+
+
+def test_geometry_box_matches_reference_128(tmp_path):
+    mask = _deck_mask_via_files("128x128", tmp_path)
+    np.testing.assert_array_equal(box(128, 128), mask)
+    # The upstream geometry: a closed box, 4*128-4 wall cells (SURVEY.md §2.1).
+    assert mask.sum() == 4 * 128 - 4
+    assert (_gold_obstacles("128x128") >= (mask != 0)).all()
+
+
+def test_geometry_channel_matches_reference_128x256(tmp_path):
+    mask = _deck_mask_via_files("128x256", tmp_path)
+    np.testing.assert_array_equal(channel_with_divider(128, 256), mask)
+    assert mask[:, 0].all() and mask[:, -1].all() and mask[127, :].all()
+    assert (_gold_obstacles("128x256") >= (mask != 0)).all()
+
+
+def test_geometry_wall_matches_reference_1024(tmp_path):
+    mask = _deck_mask_via_files("1024x1024", tmp_path)
+    np.testing.assert_array_equal(box_with_vertical_wall(1024, 1024, wall_col=341), mask)
+    assert mask[:, 341].all()
+    assert (_gold_obstacles("1024x1024") >= (mask != 0)).all()
 
 
 def test_obstacle_file_roundtrip(tmp_path):
